@@ -1,12 +1,12 @@
-"""pim_jpeg_decoder_tpu — a TPU-native JPEG decode engine.
+"""pim_jpeg_decoder_tpu — a JPEG decode engine for NVIDIA GPUs, in JAX.
 
 A from-scratch rebuild of the capabilities of the UPMEM-PIM JPEG decoder
-(reference: jeun-990806/pim-jpeg-decoder) designed TPU-first:
+(reference: jeun-990806/pim-jpeg-decoder):
 
 - host marker scan + entropy decode (C++ fast path, NumPy fallback) feeding
-- a fused Pallas kernel (dequantize -> integer 8x8 IDCT -> chroma upsample ->
-  YCbCr->RGB) laid out with 8x8 blocks on the TPU lane axis,
-- MCU-tile sharding across chips via ``jax.sharding`` + ``shard_map``
+- one fused device program (dequantize -> integer 8x8 IDCT -> chroma
+  upsample -> YCbCr->RGB) in plain JAX, MCUs on the last axis,
+- MCU sharding across devices via ``jax.sharding`` + ``shard_map``
   (replacing the reference's NUM_TASKLETS / MAX_MCU_PER_DPU DPU sharding),
 - a producer/consumer pipeline overlapping host entropy decode with device
   execution (replacing the reference's two-thread batch queue,

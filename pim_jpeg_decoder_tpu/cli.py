@@ -16,13 +16,13 @@ from typing import List, Optional
 def main(argv: Optional[List[str]] = None) -> int:
     parser = argparse.ArgumentParser(
         prog="pim-jpeg-decoder-tpu",
-        description="TPU-native baseline JPEG -> BMP decoder",
+        description="GPU-accelerated baseline JPEG -> BMP decoder",
     )
     parser.add_argument("files", nargs="+", help="JPEG files to decode")
     parser.add_argument("--batch-mcus", type=int, default=None,
                         help="MCUs per device batch (static shape)")
     parser.add_argument("--lane-tile", type=int, default=None,
-                        help="kernel lanes per grid step")
+                        help="MCU padding granule of device batches")
     parser.add_argument("--prepare-threads", type=int, default=None,
                         help="host entropy-decode threads")
     parser.add_argument("--scale", type=int, default=None,
@@ -46,14 +46,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser.add_argument("--profile", metavar="DIR", default=None,
                         help="write a jax.profiler trace to DIR "
                              "(device-side per-kernel timing)")
-    parser.add_argument("--device-profile", nargs="?", const="measure",
-                        default="cached", choices=("measure", "cached", "off"),
-                        help="per-phase device timing in the Profiles block "
-                             "(dequantize/IDCT/color, like the reference's "
-                             "DPU cycle counters). Default 'cached' prints "
-                             "disk-cached measurements instantly; 'measure' "
-                             "times any missing launch geometry now (first "
-                             "use compiles the per-stage kernels)")
     args = parser.parse_args(argv)
 
     import os
@@ -88,7 +80,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         elif r.out_path and not args.quiet:
             print(f"{r.name} -> {r.out_path}")
     if not args.quiet:
-        report.print_profile(device_phases=args.device_profile)
+        report.print_profile()
     return 1 if failures else 0
 
 

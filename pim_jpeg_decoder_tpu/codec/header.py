@@ -1,6 +1,6 @@
 """Parsed-JPEG data model.
 
-TPU-native equivalent of the reference's ``Header`` family
+Equivalent of the reference's ``Header`` family
 (reference: src/headers/jpeg.h:124-179: ``QuantizationTable``,
 ``HuffmanTable``, ``ColorComponent``, ``Header``).  Differences by design:
 

@@ -5,8 +5,7 @@ src/jpeg_scanner.cpp:438-448) plus a major upgrade over its bit-at-a-time
 ``get_next_symbol`` linear search (reference: src/jpeg_scanner.cpp:450-465):
 we build a flat 16-bit peek LUT per table, so one table lookup decodes any
 symbol (JPEG codes are at most 16 bits).  The same LUT feeds the NumPy
-reference decoder, the C++ host fast path, and (down-converted) the TPU
-entropy kernel.
+reference decoder and the C++ host fast path.
 """
 
 from __future__ import annotations

@@ -8,7 +8,7 @@ completes end-to-end (reference: src/jpeg_scanner.cpp:425-430).  This module
 implements the full ITU-T T.81 G.2 decode over the multi-scan stream the
 scanner now parses, accumulating per-component coefficient planes and
 emitting the engine's standard ``[num_mcus, g, 64]`` transport layout — the
-TPU kernel path is identical to baseline from there on.
+device decode path is identical to baseline from there on.
 
 Semantics follow T.81 Annex G (the same scheme libjpeg implements), and
 results are validated pixel-exact against PIL/libjpeg in tests.

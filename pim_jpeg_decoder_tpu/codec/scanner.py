@@ -1,6 +1,6 @@
 """JPEG marker scanner: bytes -> :class:`JpegHeader`.
 
-TPU-native equivalent of the reference's marker parsers and top-level scanner
+Equivalent of the reference's marker parsers and top-level scanner
 (reference: src/jpeg_scanner.cpp:6-343 ``read_*`` parsers and
 src/jpeg_scanner.cpp:345-436 ``read_JPEG``), with the same validation
 surface:

@@ -1,8 +1,8 @@
 """Device-resident batch decode: JPEG bytes -> training batch, no host RGB.
 
-The TPU-native deployment story the reference cannot have: when decode
+The accelerator deployment story the reference cannot have: when decode
 feeds an ML input pipeline (the ImageNet use-case of BASELINE.json), the
-decoded pixels should never leave the chip.  This module decodes a batch of
+decoded pixels should never leave the device.  This module decodes a batch of
 same-sized JPEGs into a single ``[B, H, W, 3]`` uint8 device array — host
 work is only the marker scan + entropy decode (coefficients H2D are ~5-10x
 smaller than RGB), and raster assembly happens as XLA reshapes on device
@@ -29,11 +29,7 @@ from pim_jpeg_decoder_tpu.codec.header import JpegError, JpegHeader
 from pim_jpeg_decoder_tpu.codec.scanner import scan_jpeg
 from pim_jpeg_decoder_tpu.models.pipeline import build_qpool, entropy_decode
 from pim_jpeg_decoder_tpu.ops import specs as S
-from pim_jpeg_decoder_tpu.ops.decode_kernel import (
-    LANE_TILE,
-    decode_mcus_impl,
-    _interpret,
-)
+from pim_jpeg_decoder_tpu.ops.decode_kernel import LANE_TILE, decode_mcus_impl
 
 
 def _norm_static(dtype, mean, std):
@@ -70,7 +66,7 @@ def _norm_static(dtype, mean, std):
     if std3 is not None:
         if any(s == 0.0 for s in std3):
             raise ValueError("std must be nonzero")
-        std3 = tuple(1.0 / s for s in std3)  # multiply beats divide on VPU
+        std3 = tuple(1.0 / s for s in std3)  # multiply beats divide
     return (dtype, mean3, std3)
 
 
@@ -107,34 +103,31 @@ def _raster_relayout(raw, mode: S.ModeSpec, scale: int, batch: int,
 
 @functools.partial(
     jax.jit,
-    static_argnames=("mode", "lane_tile", "interpret", "batch", "gh", "gw",
-                     "height", "width", "scale", "norm"),
+    static_argnames=("mode", "batch", "gh", "gw", "height", "width",
+                     "scale", "norm"),
 )
-def _decode_batch_jit(coeffs, qidx, qpool, *, mode: S.ModeSpec,
-                      lane_tile: int, interpret: bool, batch: int,
+def _decode_batch_jit(coeffs, qidx, qpool, *, mode: S.ModeSpec, batch: int,
                       gh: int, gw: int, height: int, width: int,
                       scale: int = 1, norm=None):
-    raw = decode_mcus_impl(coeffs, qidx, qpool, mode=mode,
-                           lane_tile=lane_tile, interpret=interpret,
-                           raw=True, scale=scale)
+    raw = decode_mcus_impl(coeffs, qidx, qpool, mode=mode, raw=True,
+                           scale=scale)
     img = _raster_relayout(raw, mode, scale, batch, gh, gw)
     return _apply_norm(img[:, :height, :width, :], norm)
 
 
 def _mesh_align(mesh, lane_tile: int) -> int:
-    """Transport-row alignment for a batch: each chip's shard must be a
-    whole number of kernel lane tiles."""
+    """Transport-row alignment for a batch: each card's shard must be a
+    whole number of lane tiles (the MCU padding granule)."""
     if mesh is None:
         return lane_tile
     return mesh.devices.size * lane_tile
 
 
 @functools.lru_cache(maxsize=None)
-def _sharded_batch_fn(mesh, mode: S.ModeSpec, lane_tile: int,
-                      interpret: bool, batch: int, gh: int, gw: int,
+def _sharded_batch_fn(mesh, mode: S.ModeSpec, batch: int, gh: int, gw: int,
                       height: int, width: int, scale: int, norm):
-    """Compiled multi-chip batch-decode program: the fused kernel runs
-    under shard_map over the MCU axis (each chip decodes its tile slice,
+    """Compiled multi-card batch-decode program: the device decode runs
+    under shard_map over the MCU axis (each card decodes its MCU slice,
     no collectives — MCUs are independent), then the raster relayout +
     normalization run under the same jit, where XLA inserts the minimal
     resharding; the output is constrained to batch-axis sharding when the
@@ -145,9 +138,8 @@ def _sharded_batch_fn(mesh, mode: S.ModeSpec, lane_tile: int,
 
     from pim_jpeg_decoder_tpu.parallel.mesh import MCU_AXIS
 
-    impl = functools.partial(decode_mcus_impl, mode=mode,
-                             lane_tile=lane_tile, interpret=interpret,
-                             raw=True, scale=scale)
+    impl = functools.partial(decode_mcus_impl, mode=mode, raw=True,
+                             scale=scale)
     shmapped = jax.shard_map(
         impl, mesh=mesh,
         in_specs=(P(MCU_AXIS), P(MCU_AXIS), P()),
@@ -169,18 +161,16 @@ def _sharded_batch_fn(mesh, mode: S.ModeSpec, lane_tile: int,
 
 
 @functools.lru_cache(maxsize=None)
-def _sharded_crops_fn(mesh, mode: S.ModeSpec, lane_tile: int,
-                      interpret: bool, batch: int, gh: int, gw: int,
+def _sharded_crops_fn(mesh, mode: S.ModeSpec, batch: int, gh: int, gw: int,
                       crop_h: int, crop_w: int, scale: int, norm):
-    """Multi-chip variant of ``_decode_batch_crops_jit`` (see
+    """Multi-card variant of ``_decode_batch_crops_jit`` (see
     :func:`_sharded_batch_fn` for the sharding structure)."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     from pim_jpeg_decoder_tpu.parallel.mesh import MCU_AXIS
 
-    impl = functools.partial(decode_mcus_impl, mode=mode,
-                             lane_tile=lane_tile, interpret=interpret,
-                             raw=True, scale=scale)
+    impl = functools.partial(decode_mcus_impl, mode=mode, raw=True,
+                             scale=scale)
     shmapped = jax.shard_map(
         impl, mesh=mesh,
         in_specs=(P(MCU_AXIS), P(MCU_AXIS), P()),
@@ -347,9 +337,8 @@ def _dispatch_staged(staged, lane_tile: int, scale: int, norm=None,
             coeffs, qidx, qpool = place_for_mesh(coeffs, qidx, qpool, mesh)
             if timers is not None:
                 jax.block_until_ready((coeffs, qidx, qpool))
-        fn = _sharded_batch_fn(mesh, mode, lane_tile, _interpret(), batch,
-                               h0.mcu_rows, h0.mcu_cols, height, width,
-                               scale, norm)
+        fn = _sharded_batch_fn(mesh, mode, batch, h0.mcu_rows, h0.mcu_cols,
+                               height, width, scale, norm)
         with _tstage(timers, "device"):
             out = fn(coeffs, qidx, qpool)
             if timers is not None:
@@ -364,8 +353,7 @@ def _dispatch_staged(staged, lane_tile: int, scale: int, norm=None,
     with _tstage(timers, "device"):
         out = _decode_batch_jit(
             coeffs, qidx, qpool,
-            mode=mode, lane_tile=lane_tile, interpret=_interpret(),
-            batch=batch, gh=h0.mcu_rows, gw=h0.mcu_cols,
+            mode=mode, batch=batch, gh=h0.mcu_rows, gw=h0.mcu_cols,
             height=height, width=width,
             scale=scale, norm=norm)
         if timers is not None:
@@ -526,17 +514,15 @@ def iter_decode_batches(
 
 @functools.partial(
     jax.jit,
-    static_argnames=("mode", "lane_tile", "interpret", "batch", "gh", "gw",
-                     "crop_h", "crop_w", "scale", "norm"),
+    static_argnames=("mode", "batch", "gh", "gw", "crop_h", "crop_w",
+                     "scale", "norm"),
 )
 def _decode_batch_crops_jit(coeffs, qidx, qpool, oys, oxs, *,
-                            mode: S.ModeSpec, lane_tile: int,
-                            interpret: bool, batch: int, gh: int, gw: int,
+                            mode: S.ModeSpec, batch: int, gh: int, gw: int,
                             crop_h: int, crop_w: int, scale: int = 1,
                             norm=None):
-    raw = decode_mcus_impl(coeffs, qidx, qpool, mode=mode,
-                           lane_tile=lane_tile, interpret=interpret,
-                           raw=True, scale=scale)
+    raw = decode_mcus_impl(coeffs, qidx, qpool, mode=mode, raw=True,
+                           scale=scale)
     img = _raster_relayout(raw, mode, scale, batch, gh, gw)
     # Per-image sub-pixel offset into the covering MCU grid (on device);
     # offsets and crop dims arrive pre-divided by scale.
@@ -683,16 +669,15 @@ def _dispatch_staged_crops(staged, lane_tile: int, scale: int, norm=None,
     if mesh is not None:
         from pim_jpeg_decoder_tpu.parallel.sharding import place_for_mesh
         coeffs, qidx, qpool = place_for_mesh(coeffs, qidx, qpool, mesh)
-        fn = _sharded_crops_fn(mesh, mode, lane_tile, _interpret(), batch,
-                               gh_c, gw_c, crop_h, crop_w, scale, norm)
+        fn = _sharded_crops_fn(mesh, mode, batch, gh_c, gw_c, crop_h, crop_w,
+                               scale, norm)
         return fn(coeffs, qidx, qpool, jnp.asarray(oys),
                   jnp.asarray(oxs)), headers
     out = _decode_batch_crops_jit(
         jnp.asarray(coeffs), jnp.asarray(qidx),
         jnp.asarray(qpool, jnp.float32),
         jnp.asarray(oys), jnp.asarray(oxs),
-        mode=mode, lane_tile=lane_tile, interpret=_interpret(),
-        batch=batch, gh=gh_c, gw=gw_c, crop_h=crop_h, crop_w=crop_w,
+        mode=mode, batch=batch, gh=gh_c, gw=gw_c, crop_h=crop_h, crop_w=crop_w,
         scale=scale, norm=norm)
     return out, headers
 

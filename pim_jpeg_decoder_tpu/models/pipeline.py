@@ -1,7 +1,7 @@
-"""The TPU JPEG decode pipeline — scan, entropy-decode, fused kernel, raster.
+"""The JPEG decode pipeline — scan, entropy-decode, device decode, raster.
 
 The "flagship model" of this framework: a jittable device program (the fused
-Pallas kernel from :mod:`pim_jpeg_decoder_tpu.ops.decode_kernel`) wrapped in
+decode from :mod:`pim_jpeg_decoder_tpu.ops.decode_kernel`) wrapped in
 host stages that mirror the reference's pipeline end to end:
 
   scan_jpeg (marker parse)      <- reference src/jpeg_scanner.cpp:345
@@ -271,7 +271,7 @@ def decode_scaled(data: bytes, scale: int,
     """Scaled decode: ``[ceil(H/scale), ceil(W/scale), 3]`` for scale 2/4/8.
 
     Reduced (8/scale)-point IDCT of the top-left frequency sub-block — the
-    libjpeg ``scale_denom`` capability, TPU-native: device work and D2H
+    libjpeg ``scale_denom`` capability on the device: device work and D2H
     shrink by ~scale^2, the natural fit for ML input pipelines that resize
     anyway.  scale=1 is a full decode.  ``mesh=`` shards the MCU grid
     across local chips (bit-identical; tested).

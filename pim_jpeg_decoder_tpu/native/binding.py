@@ -39,8 +39,9 @@ _load_failed = False
 
 
 def _cache_dir() -> str:
-    base = os.environ.get("PIM_JPEG_TPU_CACHE",
-                          os.path.join(tempfile.gettempdir(), "pim_jpeg_tpu"))
+    base = os.environ.get(
+        "PIM_JPEG_TPU_CACHE",
+        os.path.join(tempfile.gettempdir(), "pim_jpeg_decoder"))
     os.makedirs(base, exist_ok=True)
     return base
 

@@ -9,7 +9,7 @@
 //     code search),
 //   * restart intervals counted in MCUs per ITU-T T.81 E.2.4 with recorded
 //     segment byte offsets as re-entry points,
-//   * output written directly into the TPU transport layout
+//   * output written directly into the device transport layout
 //     [num_mcus, g, 64] int16, natural (de-zigzagged) order.
 //
 // Semantics are identical to pim_jpeg_decoder_tpu/codec/entropy.py (the

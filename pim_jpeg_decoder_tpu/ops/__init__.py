@@ -1,1 +1,1 @@
-"""TPU compute kernels (Pallas) and the shared fixed-point decode spec."""
+"""The device decode program and the shared fixed-point decode spec."""

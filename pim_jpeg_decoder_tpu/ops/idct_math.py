@@ -1,8 +1,8 @@
 """Dtype-generic 8-point integer IDCT butterfly (spec implementation).
 
 Pure arithmetic on whatever array type is passed in (NumPy int32 arrays for
-the oracle, JAX int32 arrays inside the Pallas kernel), so the oracle and
-the TPU kernel execute literally the same butterfly — bit-exactness between
+the oracle, JAX int32 arrays in the device program), so the oracle and
+the device execute literally the same butterfly — bit-exactness between
 them is by construction, and correctness of the shared code is pinned
 against the ideal float IDCT in tests/test_idct.py.
 

@@ -1,6 +1,6 @@
-"""The fixed-point decode spec shared by the NumPy oracle and the TPU kernels.
+"""The fixed-point decode spec shared by the NumPy oracle and the device.
 
-Bit-exactness contract: every implementation (NumPy oracle, Pallas kernel,
+Bit-exactness contract: every implementation (NumPy oracle, device program,
 C++ host path) computes dequantize -> IDCT -> level shift -> upsample ->
 color conversion with EXACTLY the integer arithmetic defined here, so their
 outputs are bit-identical (SURVEY.md section 4 "bit-exactness decision point").
@@ -59,7 +59,7 @@ SAMPLE_MAX = 127
 # by CONST_BITS + PASS1_BITS), then clamp to the sample range.  Subsampled
 # chroma reduces per-axis to (sampling_factor * n) points — less than luma,
 # no upsampling at scale >= 2 (matches libjpeg, where 1/2-scale 4:2:0
-# chroma is the full 8x8).  The oracle and the Pallas kernel share these
+# chroma is the full 8x8).  The oracle and the device program share these
 # matrices, so bit-exactness between them is by construction (full-scale
 # decode is unaffected: scale=1 uses the Loeffler butterfly above).
 

@@ -1,7 +1,7 @@
 """The NumPy CPU oracle decoder — the bit-exactness reference for the engine.
 
 The reference repo has no tests (SURVEY.md section 4); this package is the
-test fixture factory and golden-output oracle the TPU pipeline is validated
+test fixture factory and golden-output oracle the device pipeline is validated
 against, plus a standalone correct CPU decoder in its own right.
 """
 

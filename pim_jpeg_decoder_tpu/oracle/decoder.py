@@ -2,7 +2,7 @@
 
 The full host-side equivalent of the reference pipeline
 (scan -> entropy decode -> dequantize -> IDCT -> upsample+color -> raster),
-used as the golden reference for the TPU path and validated against
+used as the golden reference for the device path and validated against
 PIL/libjpeg within integer-IDCT tolerance (SURVEY.md section 4).
 """
 
@@ -29,7 +29,7 @@ class DecodedImage:
 def mcu_rgb_from_coeffs(header: JpegHeader, coeffs: np.ndarray) -> np.ndarray:
     """Raw coefficients ``[M, g, 64]`` -> per-MCU RGB ``[M, v*8, h*8, 3]``.
 
-    This is the numeric stage the TPU kernel replaces; kept as a separate
+    This is the numeric stage the device decode replaces; kept as a separate
     function so kernel tests can compare at the MCU level before raster
     assembly.
     """
@@ -59,6 +59,53 @@ def mcu_rgb_from_coeffs(header: JpegHeader, coeffs: np.ndarray) -> np.ndarray:
         cr_s = C.chroma_subblock(cr, qv, qh, mode.v, mode.h)
         out[:, qv * 8:(qv + 1) * 8, qh * 8:(qh + 1) * 8, :] = C.ycbcr_to_rgb(y, cb_s, cr_s)
     return out
+
+
+def device_planes_oracle(coeffs: np.ndarray, qidx: np.ndarray,
+                         qpool: np.ndarray, mode: S.ModeSpec, scale: int = 1,
+                         ycbcr: bool = False) -> np.ndarray:
+    """The device decode's raw output computed by the NumPy spec.
+
+    Takes the device transport (``[M, g, 64]`` coefficients, ``[M]`` image
+    index, ``[Q, g, 64]`` quant rows) and returns ``[3, luma_slots, nn, M]``
+    uint8 RGB, or ``[g, 64, M]`` level-shifted YCbCr with ``ycbcr=True``;
+    slot pixels are column-major (px*n + py) as on the device.  This is the
+    reference for checking a compiled device program at launch width on
+    synthetic coefficients, without a JPEG around them.
+    """
+    from pim_jpeg_decoder_tpu.oracle.idct import reduced_idct_blocks
+
+    m = coeffs.shape[0]
+    gy, n = mode.luma_slots, 8 // scale
+    q = np.asarray(qpool)[np.asarray(qidx)].astype(np.int32)
+    blocks = dequantize(np.asarray(coeffs), q).reshape(m, mode.g, 8, 8)
+    if ycbcr:
+        spat = idct_blocks(blocks) + 128
+        return (spat.astype(np.uint8).swapaxes(2, 3)
+                .reshape(m, mode.g, 64).transpose(1, 2, 0))
+    if scale == 1:
+        spat = idct_blocks(blocks)
+        luma = spat[:, :gy]
+    else:
+        luma = reduced_idct_blocks(blocks[:, :gy], n)
+    tiles = np.empty((m, gy, n, n, 3), np.uint8)          # [.., py, px, ch]
+    if mode.ncomp == 1:
+        tiles[:, 0] = C.gray_to_rgb(luma[:, 0])
+    elif scale == 1:
+        for s in range(gy):
+            qv, qh = mode.luma_slot_pos(s)
+            cb = C.chroma_subblock(spat[:, gy], qv, qh, mode.v, mode.h)
+            cr = C.chroma_subblock(spat[:, gy + 1], qv, qh, mode.v, mode.h)
+            tiles[:, s] = C.ycbcr_to_rgb(luma[:, s], cb, cr)
+    else:
+        chroma = reduced_idct_blocks(blocks[:, gy:], mode.v * n, mode.h * n)
+        for s in range(gy):
+            qv, qh = mode.luma_slot_pos(s)
+            win = (slice(None), slice(qv * n, (qv + 1) * n),
+                   slice(qh * n, (qh + 1) * n))
+            tiles[:, s] = C.ycbcr_to_rgb(luma[:, s], chroma[:, 0][win],
+                                         chroma[:, 1][win])
+    return tiles.swapaxes(2, 3).reshape(m, gy, n * n, 3).transpose(3, 1, 2, 0)
 
 
 def assemble_raster(header: JpegHeader, mcu_rgb: np.ndarray) -> np.ndarray:

@@ -6,7 +6,7 @@ with arithmetic shifts.  Capability-equivalent of the reference's DPU IDCT
 (reference: src/decoder_dpu.c:179-321 ``idct_component``), but using the
 compliance-grade Loeffler constants rather than the reference's AAN variant.
 
-The Pallas kernel (:mod:`pim_jpeg_decoder_tpu.ops.decode_kernel`) computes
+The device program (:mod:`pim_jpeg_decoder_tpu.ops.decode_kernel`) computes
 the identical arithmetic; tests assert bit-exact agreement.
 """
 
@@ -51,7 +51,7 @@ def reduced_idct_blocks(coeffs: np.ndarray, ny: int, nx: int = None,
                         clamp: bool = True) -> np.ndarray:
     """Reduced (ny x nx)-point IDCT (scaled decode): -> ``[..., ny, nx]``.
 
-    Same integer spec as the Pallas kernel's reduced path (specs.py
+    Same integer spec as the device program's reduced path (specs.py
     'Reduced (scaled) IDCT'): matrix multiply by the rounded basis, descale
     by CONST_BITS - PASS1_BITS then CONST_BITS + PASS1_BITS, int32 wrap.
     Chroma of subsampled modes uses ny/nx = sampling factor * n, so it is

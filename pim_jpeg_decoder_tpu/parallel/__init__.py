@@ -1,10 +1,11 @@
-"""Multi-chip / multi-host scaling: mesh, shard_map decode, host sharding.
+"""Multi-device / multi-host scaling: mesh, shard_map decode, host sharding.
 
-TPU-native replacement for the reference's UPMEM DpuSet communication layer
+Replacement for the reference's UPMEM DpuSet communication layer
 (reference: src/decoder_host.cpp:32,268,276-277,292,308-312): a
-``jax.sharding.Mesh`` over chips with MCU tiles as the sharded axis
+``jax.sharding.Mesh`` over devices with MCU tiles as the sharded axis
 (SURVEY.md section 2, parallelism item 2), ``shard_map`` for the fused
-kernel, and whole-image sharding across hosts so only metadata crosses DCN
+decode, and whole-image sharding across hosts so only metadata crosses the
+network
 (SURVEY.md section 5, distributed backend).
 """
 

@@ -1,7 +1,7 @@
 """Device mesh construction.
 
-The decode workload has one natural device axis: MCU tiles (inter-chip data
-parallelism — the TPU equivalent of the reference's inter-DPU MCU sharding,
+The decode workload has one natural device axis: MCU tiles (inter-device data
+parallelism — the equivalent of the reference's inter-DPU MCU sharding,
 ``MAX_MCU_PER_DPU`` chunks over consecutive DPUs,
 reference: src/decoder_host.cpp:125-128).  A 1-D mesh over all local chips
 is therefore the default; ``DPU_ALLOCATE_ALL``'s equivalent is simply

@@ -3,8 +3,8 @@
 The decode workload is embarrassingly parallel at image granularity, so the
 multi-host design (SURVEY.md section 5, "distributed communication backend")
 shards whole images per host: each process scans/entropy-decodes/launches
-its own file shard against its local chips and writes its own BMPs — only
-job metadata crosses DCN.  This is how >=90% frames/s scaling efficiency is
+its own file shard against its local cards and writes its own BMPs — only
+job metadata crosses the network.  This is how >=90% frames/s scaling efficiency is
 achieved (BASELINE.md north star): there is no cross-host data dependency
 at all.
 
@@ -27,7 +27,7 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
 
     Proceeds when explicit arguments are given, when the standard JAX
     coordinator env var is set, or when a known cluster scheduler is
-    detected (TPU pod / Slurm / Open MPI) — jax.distributed.initialize's
+    detected (Slurm / Open MPI) — jax.distributed.initialize's
     own auto-detection handles those.  Plain single-host runs skip
     initialization; call once at startup on every host.
     """
@@ -46,8 +46,6 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
     # waiting for ranks that never join.
     multi_process_intent = (
         "JAX_COORDINATOR_ADDRESS" in os.environ
-        or "TPU_WORKER_HOSTNAMES" in os.environ
-        or "MEGASCALE_COORDINATOR_ADDRESS" in os.environ
         or _env_gt1("SLURM_NTASKS")
         or _env_gt1("OMPI_COMM_WORLD_SIZE")
     )

@@ -3,11 +3,11 @@
 Replaces the reference's per-DPU scatter/exec/gather
 (``pim.copy("mcus", ...)``, ``pim.exec()``, reference:
 src/decoder_host.cpp:276-312) with JAX sharding: coefficients are placed
-with a NamedSharding over the MCU axis, each chip runs the fused Pallas
-kernel on its shard under ``shard_map``, and the RGB output stays sharded
-over the same axis (host gathers once at D2H).  No cross-chip collectives
-are needed on the decode path — MCUs are independent — so scaling is
-bandwidth-bound, not ICI-bound.
+with a NamedSharding over the MCU axis, each card runs the device decode
+on its shard under ``shard_map``, and the RGB output stays sharded over
+the same axis (host gathers once at D2H).  No cross-card collectives are
+needed on the decode path — MCUs are independent — so scaling is bound by
+each card's memory bandwidth, not by the interconnect.
 """
 
 from __future__ import annotations
@@ -16,26 +16,19 @@ import functools
 from typing import Optional
 
 import jax
-import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from pim_jpeg_decoder_tpu.ops import specs as S
-from pim_jpeg_decoder_tpu.ops.decode_kernel import (
-    LANE_TILE,
-    decode_mcus_impl,
-    _interpret,
-)
+from pim_jpeg_decoder_tpu.ops.decode_kernel import LANE_TILE, decode_mcus_impl
 from pim_jpeg_decoder_tpu.parallel.mesh import MCU_AXIS, make_mesh
 from pim_jpeg_decoder_tpu.utils.jaxtools import ensure_compilation_cache
 
 
 @functools.lru_cache(maxsize=None)
-def _sharded_fn(mesh: Mesh, mode: S.ModeSpec, lane_tile: int,
-                interpret: bool, raw: bool, ycbcr: bool = False,
-                scale: int = 1):
-    impl = functools.partial(decode_mcus_impl, mode=mode,
-                             lane_tile=lane_tile, interpret=interpret,
-                             raw=raw, ycbcr=ycbcr, scale=scale)
+def _sharded_fn(mesh: Mesh, mode: S.ModeSpec, raw: bool,
+                ycbcr: bool = False, scale: int = 1):
+    impl = functools.partial(decode_mcus_impl, mode=mode, raw=raw,
+                             ycbcr=ycbcr, scale=scale)
     # The MCU axis is the last dim of the raw and ycbcr layouts, the first
     # otherwise.
     if ycbcr:
@@ -47,8 +40,7 @@ def _sharded_fn(mesh: Mesh, mode: S.ModeSpec, lane_tile: int,
         mesh=mesh,
         in_specs=(P(MCU_AXIS), P(MCU_AXIS), P()),
         out_specs=out_spec,
-        # pallas_call's out_shape carries no varying-mesh-axis metadata;
-        # the decode is purely elementwise over the MCU axis (no
+        # The decode is purely elementwise over the MCU axis (no
         # collectives), so the replication check is vacuous here.
         check_vma=False,
     )
@@ -129,6 +121,5 @@ def decode_mcus_sharded(
             and _already_placed(qpool, mesh, P())):
         coeffs, qidx, qpool = place_for_mesh(coeffs, qidx, qpool, mesh)
 
-    fn = _sharded_fn(mesh, mode, lane_tile, _interpret(), raw, ycbcr,
-                     scale)
+    fn = _sharded_fn(mesh, mode, raw, ycbcr, scale)
     return fn(coeffs, qidx, qpool)

@@ -5,7 +5,7 @@ Equivalent of the reference's MCU preparer / batch scheduler
 greedily into a fixed MCU budget and flushed when the next image doesn't fit
 (reference: :130-144).  Differences by design:
 
-- the device batch is a dense ``[budget, g, 64]`` int16 array (the TPU
+- the device batch is a dense ``[budget, g, 64]`` int16 array (the device
   transport layout) instead of per-DPU 768-short scatter buffers;
 - per-image quant tables ride in a small pool indexed per MCU (fused in the
   kernel) instead of 276-word per-DPU metadata (reference: :156-179);

@@ -1,4 +1,4 @@
-"""The decode engine: producer/consumer pipeline around the fused kernel.
+"""The decode engine: producer/consumer pipeline around the device decode.
 
 Runtime equivalent of the reference's two host threads
 (``mcu_prepare`` producer + ``offloading`` consumer joined by a mutex/cv
@@ -10,7 +10,7 @@ queue, reference: src/decoder_host.cpp:35-38,101-350,364-365):
   ModeRouter / BatchPacker   greedy fixed-budget packing per sampling mode
         |
         v  bounded queue (backpressure = the reference's cv-guarded queue)
-  consumer thread            H2D -> fused Pallas kernel -> D2H -> raster
+  consumer thread            H2D -> fused device decode -> D2H -> raster
                              assembly -> BMP write
 
 Per-file failures are recorded and skipped, matching the reference's
@@ -75,8 +75,7 @@ class FileResult:
 class EngineReport:
     results: List[FileResult]
     timers: StageTimers
-    # Launch geometry -> count, for the device-phase breakdown
-    # (runtime/device_profile.py; the reference's per-DPU-phase counters,
+    # Launch geometry -> count (the reference's per-DPU launch counters,
     # reference: src/decoder_host.cpp:388-391).
     launch_stats: Dict[tuple, int] = dataclasses.field(default_factory=dict)
     # Launch geometry -> per-dispatch wall durations (first call of a new
@@ -92,13 +91,11 @@ class EngineReport:
     def total_megapixels(self) -> float:
         return sum(r.megapixels for r in self.results if r.ok)
 
-    def print_profile(self, device_phases: str = "off") -> None:
+    def print_profile(self) -> None:
         """Print the Profiles block (reference: decoder_host.cpp:379-394).
 
-        ``device_phases``: "off" = host stages only; "cached" = append the
-        per-phase device breakdown from disk-cached measurements (instant,
-        shows a hint when unmeasured); "measure" = measure any missing
-        launch geometry now (compiles stage kernels on first use).
+        Per-kernel device time comes from a ``jax.profiler`` trace of the
+        run (CLI ``--profile DIR``), not from this block.
         """
         print(self.timers.report(extra={
             "Decoded files": f"{self.ok_count}/{len(self.results)}",
@@ -124,14 +121,6 @@ class EngineReport:
                     cold += 1
             print(f" - Device program init (trace+compile, {cold} cold "
                   f"geometries): {init_s:.6f} (s)")
-        if device_phases != "off" and self.launch_stats:
-            from pim_jpeg_decoder_tpu.runtime.device_profile import (
-                phase_report_lines,
-            )
-            lines = phase_report_lines(self.launch_stats,
-                                       measure=device_phases == "measure")
-            if lines:
-                print("\n".join(lines))
 
 
 class DecodeEngine:
@@ -140,7 +129,7 @@ class DecodeEngine:
     Args:
       budget_mcus: MCUs per device batch (static shape; one compiled program
         per (mode, budget)).  Must be a multiple of ``lane_tile``.
-      lane_tile: kernel grid tile (lanes per step).
+      lane_tile: MCU padding granule of every device batch.
       prepare_threads: host entropy-decode parallelism.
       keep_rgb: retain decoded arrays in results (for benchmarking/tests).
     """
@@ -156,14 +145,6 @@ class DecodeEngine:
             budget_mcus=budget_mcus, lane_tile=lane_tile,
             prepare_threads=prepare_threads, scale=scale)
         cfg.validate()
-        # Fail at construction, not per file: a lane tile off the Mosaic
-        # 128-lane unit cannot lower on real TPU (interpret-mode tests
-        # accept any multiple of 8; see ops.decode_kernel.check_lane_tile).
-        from pim_jpeg_decoder_tpu.ops.decode_kernel import (
-            _interpret,
-            check_lane_tile,
-        )
-        check_lane_tile(cfg.lane_tile, -1, _interpret())
         self.config = cfg
         self.budget_mcus = cfg.budget_mcus
         self.lane_tile = cfg.lane_tile
@@ -175,11 +156,11 @@ class DecodeEngine:
         self.wire = cfg.wire
         self.keep_rgb = keep_rgb
 
-        # Shard MCU tiles across all LOCAL chips (the reference's
+        # Shard MCU tiles across all LOCAL devices (the reference's
         # DPU_ALLOCATE_ALL analogue, reference: src/decoder_host.cpp:32);
-        # single-chip hosts use the plain path.  Local devices only: in a
+        # single-device hosts use the plain path.  Local devices only: in a
         # multi-host run images are whole-host-sharded, so each process
-        # drives just its own chips (jax.devices() would span processes).
+        # drives just its own cards (jax.devices() would span processes).
         import jax
         n = cfg.num_devices or len(jax.local_devices())
         self._mesh = None
@@ -315,12 +296,11 @@ class DecodeEngine:
         return mode.ycbcr_saves_bytes
 
     def _launch_key(self, batch: Batch, sharded: bool) -> tuple:
-        """Launch geometry for the device-phase profile: PER-CHIP MCU
-        count (a mesh launch runs M/n_devices per chip) + wire dtype (the
-        int8 wire compiles a distinct, cheaper-input program) + quant-pool
-        depth Q (packed Q=max_images and dedicated/banded Q=1 batches are
-        distinct compiled programs — the one-hot quant gather's matmul
-        dimension differs)."""
+        """Launch geometry, one key per compiled device program: PER-DEVICE
+        MCU count (a mesh launch runs M/n_devices per device) + wire dtype
+        (the int8 wire compiles a distinct, cheaper-input program) +
+        quant-pool depth Q (packed Q=max_images and dedicated/banded Q=1
+        batches are distinct compiled programs)."""
         m = int(batch.coeffs.shape[0])
         if sharded:
             m //= self._mesh.devices.size
@@ -330,13 +310,13 @@ class DecodeEngine:
                 int(batch.qpool.shape[0]))
 
     def _dispatch_batch(self, batch: Batch, timers: StageTimers):
-        """Launch the fused kernel asynchronously (JAX dispatch returns
+        """Launch the device decode asynchronously (JAX dispatch returns
         immediately; the device pipeline below overlaps execution + D2H of
         batch N with dispatch of batch N+1).
 
         Returns ``(device_output, launch_key)`` — the key is recorded by
         the caller only AFTER a successful dispatch, so failed launches
-        never inflate the device-phase report.
+        never inflate the launch counts.
         """
         ycbcr = self._use_ycbcr(batch.mode)
         batch.transport = "ycbcr" if ycbcr else "rgb"

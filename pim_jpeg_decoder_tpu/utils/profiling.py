@@ -19,9 +19,9 @@ because they are two mutex operations there; Python's ``queue.Queue.get``
 performs both atomically, so the single "queue" stage here covers both and
 no separate "pop" stage exists.
 
-For device-side PHASE timing (the reference's per-DPU dequant/IDCT/color
-cycle counters) see :mod:`pim_jpeg_decoder_tpu.runtime.device_profile`;
-this module is the cheap always-on host wall-clock layer.
+For device-side kernel timing (the reference's per-DPU cycle counters) take
+a ``jax.profiler`` trace (CLI ``--profile DIR``); this module is the cheap
+always-on host wall-clock layer.
 """
 
 from __future__ import annotations
@@ -74,9 +74,9 @@ class StageTimers:
         labels = {
             "prepare": "MCU prepare (scan + entropy decode) time",
             "queue": "Queue waiting time (incl. batch pop)",
-            "h2d": "Host->TPU transfer time",
-            "kernel": "TPU kernel execution time",
-            "d2h": "TPU->Host transfer time",
+            "h2d": "Host->device transfer time",
+            "kernel": "Device kernel execution time",
+            "d2h": "Device->host transfer time",
             "write": "BMP write time",
         }
         for key in STAGES:

@@ -3,7 +3,7 @@
 A deterministic slice of the fuzz campaign keeps the randomized-input
 surface (two encoders x samplings x DRI x progressive x corruption
 classes) exercised on every test run; the full campaigns run via
-``python tools/fuzz.py`` (README "Tests / bench" records round totals).
+``python tools/fuzz.py`` (README "Tests / bench" describes them).
 """
 
 import os

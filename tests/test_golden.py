@@ -1,5 +1,5 @@
 """Golden regression pins: the bundled ILSVRC sample must decode to exactly
-these bytes forever (oracle, TPU pipeline, and BMP serialization).
+these bytes forever (oracle, device pipeline, and BMP serialization).
 
 Any spec change (IDCT constants, color fixed point, clamps, BMP layout)
 breaks these hashes on purpose — update them only with a deliberate,

@@ -3,7 +3,7 @@
 Capability extension over the reference: the reference carries progressive
 block-decode paths but can never complete progressive end-to-end
 (reference: src/jpeg_scanner.cpp:425-430,521-704).  Here the full multi-scan
-successive-approximation decode runs, feeding the same TPU transport layout
+successive-approximation decode runs, feeding the same device transport layout
 as baseline.
 """
 
@@ -98,7 +98,7 @@ class TestProgressiveTransport:
         assert (coeffs[:, 0, 0] != 0).mean() > 0.9
 
     def test_progressive_through_engine(self, photo_image):
-        """Progressive images decode through the full TPU pipeline."""
+        """Progressive images decode through the full device pipeline."""
         from pim_jpeg_decoder_tpu.runtime.engine import DecodeEngine
         data = pil_progressive(photo_image, quality=85, subsampling=0)
         engine = DecodeEngine(budget_mcus=512, lane_tile=128, keep_rgb=True)

@@ -1,8 +1,8 @@
 """Multi-chip sharding tests on the virtual 8-device CPU mesh.
 
 The SURVEY.md section 4 substitute for distributed tests: conftest forces
-``xla_force_host_platform_device_count=8``; the fused kernel runs per shard
-under shard_map in interpret mode.
+``xla_force_host_platform_device_count=8``; the device decode runs per
+shard under shard_map.
 """
 
 import os
@@ -22,7 +22,7 @@ from pim_jpeg_decoder_tpu.parallel.mesh import MCU_AXIS, make_mesh
 from pim_jpeg_decoder_tpu.parallel.multihost import partition_paths
 from pim_jpeg_decoder_tpu.parallel.sharding import decode_mcus_sharded
 
-LANE_TILE = 8  # tiny tiles: interpret mode is slow
+LANE_TILE = 8  # tiny padding granule keeps the CPU runs fast
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -131,8 +131,7 @@ class TestInitializeDistributedGating:
     def _call(self, monkeypatch, env):
         from pim_jpeg_decoder_tpu.parallel import multihost
         for var in ("JAX_COORDINATOR_ADDRESS", "SLURM_JOB_ID", "SLURM_NTASKS",
-                    "OMPI_COMM_WORLD_SIZE", "TPU_WORKER_HOSTNAMES",
-                    "MEGASCALE_COORDINATOR_ADDRESS"):
+                    "OMPI_COMM_WORLD_SIZE"):
             monkeypatch.delenv(var, raising=False)
         for k, v in env.items():
             monkeypatch.setenv(k, v)

@@ -29,12 +29,13 @@ import ctypes
 import os
 import subprocess
 import sys
+import tempfile
 
 REPO = __file__.rsplit("/tools/", 1)[0]
 sys.path.insert(0, REPO)
 
 SRC = os.path.join(REPO, "pim_jpeg_decoder_tpu", "native", "entropy.cpp")
-WORK = "/tmp/pim_jpeg_tpu/asan"
+WORK = os.path.join(tempfile.gettempdir(), "pim_jpeg_decoder", "asan")
 SO = os.path.join(WORK, "entropy_asan.so")
 
 

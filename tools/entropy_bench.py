@@ -1,4 +1,4 @@
-"""Standalone host-entropy-decode microbench (no TPU needed).
+"""Standalone host-entropy-decode microbench (no accelerator needed).
 
 Builds the same q75 corpus as bench.py, then times decode_scan_native
 (single thread) over several repetitions.  Used to iterate on

@@ -18,13 +18,14 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = __file__.rsplit("/tools/", 1)[0]
 sys.path.insert(0, REPO)
 
 SRC = os.path.join(REPO, "pim_jpeg_decoder_tpu", "native", "entropy.cpp")
-WORK = "/tmp/pim_jpeg_tpu/pgo_ab"
+WORK = os.path.join(tempfile.gettempdir(), "pim_jpeg_decoder", "pgo_ab")
 BASE_FLAGS = ["-O3", "-march=native", "-std=c++17", "-shared", "-fPIC"]
 
 
